@@ -1,5 +1,5 @@
-"""sgtd_tpu — TPU-native semantic-guided triangle-descriptor LiDAR
-global-localization and SLAM engine.
+"""sgtd_tpu — semantic-guided triangle-descriptor LiDAR global-localization
+and SLAM engine in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design with the capabilities of the SGTD
 reference stack (Hfx-J/SGTD): semantic cluster extraction (DCVC), triangle

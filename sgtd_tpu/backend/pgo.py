@@ -2,7 +2,7 @@
 
 New capability relative to the reference: its README lists GTSAM and its
 CMake links Ceres, but neither is ever called (SURVEY.md 2.4) — loop-closure
-poses are used raw. This module closes that gap TPU-natively: all factor
+poses are used raw. This module closes that gap as tensor programs: all factor
 residuals/Jacobians evaluate batched on device. Two solvers share the
 per-edge block kernel:
 

@@ -345,6 +345,9 @@ def main(argv=None):
     e.set_defaults(fn=_cmd_eval_synth)
 
     args = ap.parse_args(argv)
+    from sgtd_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     args.fn(args)
 
 

@@ -1,6 +1,6 @@
 """Dynamic Curved-Voxel Clustering (DCVC) as a fixed-shape tensor program.
 
-TPU-native re-design of the reference ``clusterManager``
+JAX re-design of the reference ``clusterManager``
 (src/sgtd/include/cluster_manager.hpp:137-421). The reference builds a
 polar-voxel hash map and propagates labels with a sequential union-find-ish
 sweep (its hot loop, SURVEY.md 3.1), and is invoked once per semantic class

@@ -1,6 +1,6 @@
 """Fast Euclidean Clustering (FEC) as a fixed-shape tensor program.
 
-TPU-native analog of the reference's alternate (non-DCVC) clustering
+Tensor-program analog of the reference's alternate (non-DCVC) clustering
 backend (src/sgtd/src/FEC.h:34-140, invoked — commented out — at
 src/sgtd/src/get_json.cpp:196-197): connected components of the
 "within ``tolerance``" euclidean-radius graph, followed by a
@@ -10,8 +10,8 @@ The reference runs a sequential one-pass kd-tree radius sweep with
 retroactive min-label merging, capping each radius query at ``max_n``
 neighbours. Here the neighbour graph is the k-nearest-neighbour graph
 (k = ``max_n``) gated at ``tolerance`` — the same bounded-degree
-approximation the reference makes — computed by the Pallas fused kNN
-kernel (ops.pallas_nn), and components resolve by iterated min-label
+approximation the reference makes — computed by the brute-force kNN
+(ops.nn), and components resolve by iterated min-label
 propagation with pointer jumping (O(log diameter) fully-parallel sweeps,
 the same machinery as cluster.dcvc). Brute-force kNN bounds practical N
 to ~8192 points, matching the per-class instance clouds the reference
@@ -26,7 +26,7 @@ from typing import NamedTuple, Tuple
 import jax
 import jax.numpy as jnp
 
-from sgtd_tpu.ops import pallas_nn
+from sgtd_tpu.ops import nn
 
 
 class FecResult(NamedTuple):
@@ -65,7 +65,7 @@ def fec_cluster(
     """
     n = points.shape[0]
     pts_eff = jnp.where(mask[:, None], points, jnp.float32(1e6))
-    idx = pallas_nn.knn(pts_eff, pts_eff, max_n)  # (N, k), self included
+    idx = nn.knn(pts_eff, pts_eff, max_n)  # (N, k), self included
     d = pts_eff[idx] - pts_eff[:, None, :]
     within = jnp.sum(d * d, axis=-1) <= jnp.float32(tolerance) ** 2
     self_i = jnp.arange(n, dtype=jnp.int32)

@@ -1,4 +1,4 @@
-"""Configuration for the TPU-native SGTD pipeline.
+"""Configuration for the JAX SGTD pipeline.
 
 Parameter names mirror the reference ROS/YAML knobs so results are comparable:
 reference ``ConfigSetting`` (src/sgtd/include/desc/STDesc.h:38-72, read at
@@ -6,7 +6,7 @@ src/sgtd/src/STDesc.cpp:18-70) and node-level params
 (src/sgtd/src/semantic_graph_localization.cpp:216-241). Canonical values from
 src/sgtd/config/SG_localization.yaml.
 
-Unlike the reference (dynamic hash maps / vectors), the TPU pipeline is all
+Unlike the reference (dynamic hash maps / vectors), this pipeline is all
 fixed-shape tensor programs, so this config also carries the static capacity
 knobs (padding sizes) that replace the reference's unbounded containers.
 """
@@ -99,9 +99,9 @@ class CapacityConfig:
     # it, pair lists are built CANDIDATE-MAJOR from the frame-major row
     # index instead (match.search.extract_pairs_by_frame — cost
     # independent of L, and the per-descriptor strided subsample is
-    # replaced by exact per-frame pair lists). Crossover measured on chip:
-    # the sel scatter costs ~4.7 ns/slot (34.7 ms at L=7.3M) while the
-    # candidate-major pass is ~15-20 ms flat — sel wins through ~4M slots.
+    # replaced by exact per-frame pair lists). The sel scatter grows with
+    # L while the candidate-major pass is flat; the crossover has not been
+    # measured on the GPU yet.
     sel_max_scan_slots: int = 4 << 20
 
 
@@ -148,7 +148,7 @@ class GicpConfig:
     # SE(3) stepping: "lm" (the reference's default optimizer,
     # lsq_registration_impl.hpp:15, trust region :123-163) or "gn" (plain
     # Gauss-Newton). LM costs the same as GN here since the 6x6 solves are
-    # unrolled Cholesky (ops.linalg3.chol_solve6): BENCH_NOTES GN-vs-LM row.
+    # unrolled Cholesky (ops.linalg3.chol_solve6).
     optimizer: str = "lm"
     # LM knobs (ref LsqRegistration ctor, lsq_registration_impl.hpp:9-21).
     lm_max_inner: int = 8  # ref lm_max_iterations_ = 10

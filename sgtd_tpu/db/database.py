@@ -1,6 +1,6 @@
 """Dense sorted descriptor database with a direct-addressed cell table.
 
-TPU-native replacement for the reference's in-memory hash DB
+JAX replacement for the reference's in-memory hash DB
 ``std::unordered_map<STDesc_LOC, std::vector<STDesc>>`` filled by
 ``STDescManager::AddSTDescs`` (src/sgtd/src/STDesc.cpp:149-172, STDesc.h:370).
 
@@ -10,8 +10,7 @@ binary search: a dense ``cell_start`` offset table over the quantised
 side-length grid (extent^3 + 1 int32 entries) maps a probe cell directly to
 its contiguous row range; the label-code equality check — the reference
 encodes it in the hash key — happens during the (vectorised) bucket scan.
-This removes the searchsorted from the hot path entirely (measured 28-36 ms
-per query on a v5e for the binary-search variant).
+This removes the dependent binary-search gathers from the hot path.
 
 The build runs host-side in NumPy (a one-off, ~seconds — the reference also
 rebuilds its DB from JSON at startup, src/readme.txt:5) and the result is a
@@ -54,10 +53,8 @@ class DescriptorDB(NamedTuple):
     packed2:     (M, 2) uint32 — per-row packed words, gathered as ONE
                  8-byte slice per probed row: word 0 = side lengths a|b in
                  16-bit fixed point (value = round(side * 256)), word 1 =
-                 side c (low 16) | frame id (high 16). TPU random-gather
-                 cost is per ROW, not per byte: one (M, 2) slice gather
-                 measured 4.7x faster than two separate (M,) gathers at
-                 bench scale (2.74 -> 0.58 ms/query, tools round-3 logs).
+                 side c (low 16) | frame id (high 16). One 8-byte row
+                 gather instead of two separate (M,) gathers.
     vertices:    (M, 3, 3) float32 — rows A, B, C (map-keyframe local frame).
     frame_ids:   (M,) int32 — owning keyframe.
     cell_start:  (extent^3 + 1,) int32 — row offset of each quantised cell;
@@ -163,9 +160,7 @@ def build_database(
 def stack_descriptor_arrays(desc_list: Sequence[Descriptors]):
     """Host-side (F, D, ...) stacking of per-frame descriptor sets.
 
-    One device->host transfer per field (not per frame) — per-frame
-    np.asarray round trips dominate map-build time on remote-attached
-    accelerators.
+    One device->host transfer per field (not per frame).
     """
     return Descriptors(
         sides=np.stack([np.asarray(d.sides) for d in desc_list]),

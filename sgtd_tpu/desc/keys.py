@@ -1,6 +1,6 @@
 """Geometric-hash key generation for triangle descriptors.
 
-TPU-native replacement for the reference's ``STDesc_LOC`` open hash keys
+JAX replacement for the reference's ``STDesc_LOC`` open hash keys
 (src/sgtd/include/desc/STDesc.h:217-250) and the 12-bit semantic packing
 ``Combinatorial_Binary_Encoding`` (src/sgtd/src/STDesc.cpp:3-16): instead of
 an unordered_map we pack (x, y, z, label-code) into a single sortable int32

@@ -1,12 +1,12 @@
 """Semantic-guided triangle descriptor construction (batched, jittable).
 
-TPU-native re-design of the reference's ``STDescManager::BuildSingleScanSTD``
+JAX re-design of the reference's ``STDescManager::BuildSingleScanSTD``
 (src/sgtd/src/STDesc.cpp:174-315). The reference walks a PCL kd-tree per
 centroid and fills hash maps; here the whole scan is one fixed-shape tensor
 program:
 
   1. dense pairwise distances over the (padded) node set,
-  2. top-k nearest neighbours per node (MXU-friendly, no tree),
+  2. top-k nearest neighbours per node (dense distances, no tree),
   3. static enumeration of all (m, n) neighbour pairs -> N * C(k-1, 2)
      candidate triangles,
   4. side-length gating + vertex ordering by opposite-side length,

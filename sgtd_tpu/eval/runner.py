@@ -30,8 +30,7 @@ from sgtd_tpu.match.pipeline import localize, localize_exact
 
 def stack_graphs(graphs: Sequence[SemanticGraph]) -> SemanticGraph:
     # Stack on host, transfer once per field: jnp.stack over per-graph
-    # arrays issues one device transfer per graph per field (measured ~10 s
-    # for 200 graphs on a remote-attached chip vs ~ms this way).
+    # arrays would issue one device transfer per graph per field.
     return SemanticGraph(
         *(
             jnp.asarray(np.stack([np.asarray(getattr(g, f)) for g in graphs]))
@@ -50,10 +49,8 @@ class MapIndex:
 
 # Builder chunk: every descriptor-build dispatch carries exactly this many
 # (padded) frames, so ONE small compiled program serves any map size — and
-# the server-side compile cache serves it across processes. Compiling the
-# whole map as one vmapped program scaled the (remote) compile with map
-# size: 200 frames cost 106-237 s of compile against seconds of compute
-# (VERDICT r4 weak #5 / next-#4).
+# the persistent compile cache serves it across processes, where one
+# whole-map vmapped program would recompile for every map size.
 BUILD_CHUNK = 32
 _build_fns: dict = {}
 

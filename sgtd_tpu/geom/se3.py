@@ -1,6 +1,6 @@
 """Batched, differentiable SO(3)/SE(3) operations in JAX.
 
-TPU-native replacement for the reference's vendored Sophus header library
+JAX replacement for the reference's vendored Sophus header library
 (/root/reference/Sophus/sophus/*.hpp) and so3_math.h — only the subset the
 pipeline needs: exp/log/compose/inverse/apply, quaternion helpers, and the
 rotation-angle metric used by the evaluation code
@@ -14,6 +14,8 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
+
+from sgtd_tpu.ops.linalg3 import HIGHEST, matmul
 
 _EPS = 1e-9
 
@@ -42,7 +44,7 @@ def so3_exp(w: jnp.ndarray) -> jnp.ndarray:
     theta2 = jnp.sum(w * w, axis=-1)
     theta = jnp.sqrt(theta2 + _EPS)
     W = hat(w)
-    W2 = W @ W
+    W2 = matmul(W, W)
     # sin(t)/t and (1-cos(t))/t^2 with Taylor fallbacks.
     a = jnp.where(theta2 > 1e-8, jnp.sin(theta) / theta, 1.0 - theta2 / 6.0)
     b = jnp.where(
@@ -78,7 +80,7 @@ def se3_exp(xi: jnp.ndarray) -> jnp.ndarray:
     theta2 = jnp.sum(w * w, axis=-1)
     theta = jnp.sqrt(theta2 + _EPS)
     W = hat(w)
-    W2 = W @ W
+    W2 = matmul(W, W)
     b = jnp.where(
         theta2 > 1e-8, (1.0 - jnp.cos(theta)) / (theta2 + _EPS), 0.5 - theta2 / 24.0
     )
@@ -89,7 +91,7 @@ def se3_exp(xi: jnp.ndarray) -> jnp.ndarray:
     )
     eye = jnp.broadcast_to(jnp.eye(3, dtype=xi.dtype), W.shape)
     V = eye + b[..., None, None] * W + c[..., None, None] * W2
-    t = jnp.einsum("...ij,...j->...i", V, v)
+    t = jnp.einsum("...ij,...j->...i", V, v, precision=HIGHEST)
     return rt_to_mat(R, t)
 
 
@@ -100,7 +102,7 @@ def se3_log(T: jnp.ndarray) -> jnp.ndarray:
     theta2 = jnp.sum(w * w, axis=-1)
     theta = jnp.sqrt(theta2 + _EPS)
     W = hat(w)
-    W2 = W @ W
+    W2 = matmul(W, W)
     # V^{-1} = I - W/2 + (1/theta^2 - cot(theta/2)/(2 theta)) W^2
     half = theta / 2.0
     cot_term = jnp.where(
@@ -110,7 +112,7 @@ def se3_log(T: jnp.ndarray) -> jnp.ndarray:
     )
     eye = jnp.broadcast_to(jnp.eye(3, dtype=T.dtype), W.shape)
     Vinv = eye - 0.5 * W + cot_term[..., None, None] * W2
-    v = jnp.einsum("...ij,...j->...i", Vinv, t)
+    v = jnp.einsum("...ij,...j->...i", Vinv, t, precision=HIGHEST)
     return jnp.concatenate([v, w], axis=-1)
 
 
@@ -128,13 +130,13 @@ def mat_inverse(T: jnp.ndarray) -> jnp.ndarray:
     """Closed-form SE(3) inverse of (..., 4, 4)."""
     R, t = T[..., :3, :3], T[..., :3, 3]
     Rt = jnp.swapaxes(R, -1, -2)
-    return rt_to_mat(Rt, -jnp.einsum("...ij,...j->...i", Rt, t))
+    return rt_to_mat(Rt, -jnp.einsum("...ij,...j->...i", Rt, t, precision=HIGHEST))
 
 
 def transform_points(T: jnp.ndarray, pts: jnp.ndarray) -> jnp.ndarray:
     """Apply (..., 4, 4) to points (..., N, 3)."""
     R, t = T[..., :3, :3], T[..., :3, 3]
-    return jnp.einsum("...ij,...nj->...ni", R, pts) + t[..., None, :]
+    return jnp.einsum("...ij,...nj->...ni", R, pts, precision=HIGHEST) + t[..., None, :]
 
 
 def relative_pose_error(gt: jnp.ndarray, est: jnp.ndarray):
@@ -143,7 +145,7 @@ def relative_pose_error(gt: jnp.ndarray, est: jnp.ndarray):
     Matches ref ``compute_adj_rpe`` (utility.hpp:110-123):
     delta = est^-1 @ gt; t_err = ||delta_t||; r_err = angle(delta_R).
     """
-    delta = mat_inverse(est) @ gt
+    delta = matmul(mat_inverse(est), gt)
     t_err = jnp.linalg.norm(delta[..., :3, 3], axis=-1)
     r_err = rotation_angle_deg(delta[..., :3, :3])
     return t_err, r_err

@@ -1,6 +1,6 @@
 """Labeled point cloud -> semantic instance graph (jittable).
 
-TPU-native re-design of the reference's per-scan graph builder ``gen_labels``
+JAX re-design of the reference's per-scan graph builder ``gen_labels``
 + ``gen_graphs`` (src/sgtd/src/get_json.cpp:41-343). Class routing matches the
 reference exactly (train-id label space, the spvnas/SemanticKITTI remap):
 

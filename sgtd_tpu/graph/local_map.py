@@ -1,6 +1,6 @@
 """Multi-frame local-map keyframes (map densification).
 
-TPU-native analog of the reference's ``local_map`` tool
+JAX analog of the reference's ``local_map`` tool
 (src/sgtd/src/local_map.cpp:213-482): for each keyframe, every scan whose
 pose lies within ``radius`` (15 m there, :266) is transformed into the
 keyframe's sensor frame (T_i^-1 T_j, :300) and merged before clustering —

@@ -1,6 +1,6 @@
 """Semantic-graph keyframe representation as fixed-shape arrays.
 
-TPU-native analog of the reference ``Graph`` struct
+JAX analog of the reference ``Graph`` struct
 (src/sgtd/include/Semantic_Graph.hpp:62-111): per keyframe a set of semantic
 instance nodes (centroid + class label). Dynamic std::vectors become padded
 arrays with a validity mask so every scan has an identical shape and the
@@ -67,9 +67,8 @@ def make_graph(
     m = np.zeros(max_nodes, dtype=bool)
     m[:n] = True
     # Host-backed arrays: a SemanticGraph is jit-ready as-is, and keeping
-    # fields in NumPy avoids one device transfer per field per graph (on
-    # remote-attached accelerators those tiny transfers dominate batch
-    # assembly; stacking transfers once per field instead).
+    # fields in NumPy avoids one device transfer per field per graph
+    # (stacking transfers once per field instead).
     return SemanticGraph(
         centers=c,
         labels=l,

@@ -1,6 +1,6 @@
 """Legacy coarse matcher: semantic-topology histograms + linear assignment.
 
-TPU-native re-design of the reference's ``graph_match`` path
+JAX re-design of the reference's ``graph_match`` path
 (src/sgtd/include/Semantic_Graph.hpp:359-521) — the alternate coarse matcher
 superseded by the descriptor SearchLoop but kept for parity (SURVEY.md L5):
 
@@ -15,7 +15,7 @@ superseded by the descriptor SearchLoop but kept for parity (SURVEY.md L5):
 The reference solves assignment with a scipy-port LSAP / LAPJV
 (linear_sum_assignment.hpp, lapjav.cpp — sequential augmenting paths); here
 assignment is a batched Bertsekas auction (parallel bidding, fixed sweeps),
-which matches LSAP on well-separated costs and fits the TPU execution model.
+which matches LSAP on well-separated costs and fits a batched tensor program.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Jonker-Volgenant linear assignment (LAPJV), host-side NumPy.
 
-TPU-native-framework analog of the reference's vendored alternate LAP
+JAX analog of the reference's vendored alternate LAP
 backend (src/sgtd/include/lapjav.hpp:60-62, src/sgtd/src/lapjav.cpp:
 column reduction -> augmenting row reduction -> augmentation via
 Dijkstra-style shortest augmenting paths). The reference includes it

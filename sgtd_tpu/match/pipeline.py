@@ -1,6 +1,6 @@
 """End-to-end one-shot localization pipeline (jittable).
 
-TPU-native analog of ``STDescManager::SearchLoop`` plus the surrounding main
+JAX analog of ``STDescManager::SearchLoop`` plus the surrounding main
 loop of the localization node (src/sgtd/src/STDesc.cpp:84-147,
 src/sgtd/src/semantic_graph_localization.cpp:567-646): build the query's
 triangle descriptors, vote for candidate keyframes, geometrically verify every
@@ -25,6 +25,7 @@ from sgtd_tpu.geom import se3
 from sgtd_tpu.graph.types import SemanticGraph
 from sgtd_tpu.match.search import candidate_search
 from sgtd_tpu.match.verify import verify_candidates
+from sgtd_tpu.ops.linalg3 import matmul
 
 
 class LocalizationResult(NamedTuple):
@@ -91,7 +92,7 @@ def localize_descriptors(
     trans = ver.trans[order]
 
     t_loop = se3.rt_to_mat(rot, trans)  # (C, 4, 4)
-    poses = db.frame_poses[frames] @ t_loop
+    poses = matmul(db.frame_poses[frames], t_loop)
 
     best_score = scores[0]
     found = best_score > jnp.float32(config.search.icp_threshold)
@@ -168,7 +169,7 @@ def localize_exact(
     rot = ver.rot[order]
     trans = ver.trans[order]
     t_loop = se3.rt_to_mat(rot, trans)
-    poses = db.frame_poses[frames] @ t_loop
+    poses = matmul(db.frame_poses[frames], t_loop)
     best_score = scores[0]
     found = best_score > jnp.float32(cfg.search.icp_threshold)
     return LocalizationResult(
@@ -265,7 +266,7 @@ def localize_refined(
         )
     pick, use, refined_poses = rerank_pick(
         out.fitness_gated, out.inlier_frac,
-        db.frame_poses[frames_k] @ out.transform,
+        matmul(db.frame_poses[frames_k], out.transform),
         res.poses[:rerank_k], res.found, config.gicp,
     )
     return RefinedResult(
@@ -316,7 +317,9 @@ def rerank_pick(fitness_gated, inlier_frac, refined_poses, init_poses,
     # Rotation shift: angle of R_refined R_init^T. Wrong-basin refinements
     # on low-structure clouds can rotate grossly while translating little,
     # so the guard gates both components.
-    dR = refined_poses[:, :3, :3] @ jnp.swapaxes(init_poses[:, :3, :3], -1, -2)
+    dR = matmul(
+        refined_poses[:, :3, :3], jnp.swapaxes(init_poses[:, :3, :3], -1, -2)
+    )
     tr = jnp.clip((jnp.trace(dR, axis1=-2, axis2=-1) - 1.0) * 0.5, -1.0, 1.0)
     rot_deg = jnp.degrees(jnp.arccos(tr))
     guard_ok = (shift <= jnp.float32(gcfg.max_refine_shift_m)) & (

@@ -1,6 +1,6 @@
 """Vote-based candidate frame search over the sorted descriptor DB.
 
-TPU-native re-design of ``STDescManager::candidate_selector``
+JAX re-design of ``STDescManager::candidate_selector``
 (src/sgtd/src/STDesc.cpp:318-460). The reference probes 27 hash buckets per
 query descriptor under OpenMP and accumulates votes in a fixed array; here the
 same computation is one fused tensor program:
@@ -41,22 +41,15 @@ import numpy as np
 _I32_MAX = np.int32(2**31 - 1)
 
 
-def _use_expand_kernel(l_max: int) -> bool:
-    """Static gate for the sorted-heads Pallas expansion
-    (ops.pallas_expand.expand_jobs): TPU only (interpret mode would slow
-    CPU tests; parity is covered by tests/test_pallas_expand.py), scan
-    budget on the kernel's 8192-slot superblock granularity (guaranteed
-    by fit_scan_slots) and below the f32-exact head bound."""
-    import os
-
-    from sgtd_tpu.ops.pallas_expand import _TSUPER
-
-    return (
-        jax.default_backend() == "tpu"
-        and os.environ.get("SGTD_NO_EXPAND_KERNEL", "") != "1"
-        and l_max % _TSUPER == 0
-        and l_max < (1 << 24)
+def frame_votes(hit: jnp.ndarray, frame: jnp.ndarray, f_pad: int) -> jnp.ndarray:
+    """Per-frame vote tally (ref match_array, STDesc.cpp:410-412): number
+    of ``hit`` slots per ``frame`` id, (f_pad,) float32. Ids outside
+    [0, f_pad) count nothing. An int32 scatter-add: exact, and independent
+    of the order in which the adds land."""
+    votes = jnp.zeros(f_pad, jnp.int32).at[frame].add(
+        hit.astype(jnp.int32), mode="drop"
     )
+    return votes.astype(jnp.float32)
 
 
 class CandidateSet(NamedTuple):
@@ -137,8 +130,8 @@ def _bucket_lookup(
     Fast path: the DB's direct-addressed bucket table — three independent
     gathers (cell remap, code remap, one (start, len) 8-byte slice).
     Fallback (DB beyond 2^31 rows or the table-slot budget): the sequential
-    in-cell binary search over the sorted codes (16 dependent gathers —
-    measured ~4x slower at bench scale; kept for unbounded generality).
+    in-cell binary search over the sorted codes (16 dependent gathers;
+    kept for unbounded generality).
 
     With ``row_offset`` the returned ranges are clipped into this shard's
     local rows (ranges are stored globally; a bucket split across shards is
@@ -181,7 +174,7 @@ def _bucket_lookup(
         # covers any cell (a cell cannot hold more rows than the table) —
         # no fixed per-cell capacity ceiling. Rolled loop: an unrolled
         # gather chain sends XLA:CPU compilation into the weeds
-        # (>minutes); TPU is fine either way.
+        # (>minutes).
         steps = max(int(np.ceil(np.log2(max(m_rows, 2)))), 1)
         lo2 = jnp.broadcast_to(cs, (2,) + cs.shape)
         hi2 = jnp.broadcast_to(ce, (2,) + ce.shape)
@@ -237,7 +230,7 @@ def probe_and_hits(
     # one flat job list, so gather/scatter work equals the true total bucket
     # occupancy, padded only up to the static caps.max_scan_slots. The
     # expansion is NOT jnp.repeat (whose lowering binary-searches every slot
-    # into the offset table — measured 66 ms/chunk, the stage's largest op):
+    # into the offset table):
     # per-slot row and descriptor ids are rebuilt exactly from scatter-added
     # integer deltas at the segment heads followed by one cumsum — the
     # telescoping sum reproduces each segment's base even when empty
@@ -245,8 +238,8 @@ def probe_and_hits(
     # truncated exactly like repeat would (heads past the cap scatter out
     # of bounds and drop, as do their slots). The lookup above lands on the
     # exact (cell, code) bucket, so no code re-check is needed; sides +
-    # frame come from TWO uint32 gathers per row (16-bit fixed point) — TPU
-    # random-gather throughput bounds this stage.
+    # frame come from one 8-byte packed-word gather per row (16-bit fixed
+    # point).
     length = jnp.where(probe_ok, end - start, 0).ravel()  # (D*27,)
     n_jobs = d_max * 27
     offsets = jnp.concatenate(
@@ -270,42 +263,22 @@ def probe_and_hits(
     # query sides are quantised to the same grid (max perturbation 1/512 of
     # a cell — two orders below the rough threshold) so the per-slot query
     # values expand through the exact integer delta/cumsum machinery
-    # instead of four more L-sized random gathers (q[desc, k], thr2[desc]
-    # — measured ~4 ms/query); thresholds are recomputed per slot on the
-    # VPU. 15-bit packing holds sides up to 127 cells — beyond the
-    # key-space validation bound.
+    # instead of four more L-sized random gathers (q[desc, k], thr2[desc]);
+    # thresholds are recomputed per slot. 15-bit packing holds sides up to
+    # 127 cells — beyond the key-space validation bound.
     qq = jnp.clip(jnp.round(query.sides * 256.0), 0, 32767).astype(jnp.int32)
     qq_j = qq[job_desc]  # (NJ, 3) — job-level gather, 27x smaller than L
-    if _use_expand_kernel(l_max):
-        # Sorted-heads Pallas expansion (ops.pallas_expand): all channels
-        # in one pass with ONE staging scatter — the XLA path below pays
-        # one serialized NJ-sized scatter PER channel (the probe stage's
-        # largest single component at bench shapes, BENCH_NOTES kernel
-        # finding r4-#4). The row base is limb-split so every staged
-        # channel stays f32-exact (< 2^24).
-        from sgtd_tpu.ops.pallas_expand import expand_jobs
-
-        base = start.ravel() - heads + l_max  # >= 1, < m_rows + l_max
-        payload = jnp.stack(
-            [base >> 12, base & 4095,
-             qq_j[:, 0], qq_j[:, 1], qq_j[:, 2], job_desc],
-            axis=1,
-        )
-        ex = expand_jobs(length, payload, l_max)
-        row = ((ex[0] << 12) | ex[1]) - l_max + slot
-        q_a, q_b, q_c, desc = ex[2], ex[3], ex[4], ex[5]
-    else:
-        # row = (start_j - head_j) + slot within segment j; two more
-        # expansions carry all three sides + the descriptor id
-        # (delta/cumsum is linear, so the telescoped sum reproduces any
-        # PACKED integer exactly): (a << 15 | b) and (desc << 15 | c).
-        row = _expand(start.ravel() - heads) + slot
-        q_ab = _expand((qq_j[:, 0] << 15) | qq_j[:, 1])
-        dq_c = _expand((job_desc << 15) | qq_j[:, 2])
-        desc = dq_c >> 15  # nondecreasing
-        q_c = dq_c & 32767
-        q_a = q_ab >> 15
-        q_b = q_ab & 32767
+    # row = (start_j - head_j) + slot within segment j; two more
+    # expansions carry all three sides + the descriptor id
+    # (delta/cumsum is linear, so the telescoped sum reproduces any
+    # PACKED integer exactly): (a << 15 | b) and (desc << 15 | c).
+    row = _expand(start.ravel() - heads) + slot
+    q_ab = _expand((qq_j[:, 0] << 15) | qq_j[:, 1])
+    dq_c = _expand((job_desc << 15) | qq_j[:, 2])
+    desc = dq_c >> 15  # nondecreasing
+    q_c = dq_c & 32767
+    q_a = q_ab >> 15
+    q_b = q_ab & 32767
 
     row_c = jnp.clip(row, 0, m_rows - 1)
     w2 = db.packed2[row_c]  # (L, 2) uint32 — ONE 8-byte slice gather per row
@@ -325,26 +298,9 @@ def probe_and_hits(
     thr2 = qs2 * jnp.float32(search.rough_dis_threshold) ** 2
     hit = slot_valid & (dis2 < thr2)  # (L,)
 
-    # --- exact per-frame vote tally (ref match_array, STDesc.cpp:410-412). ---
-    # segment_sum lowers to a serialized HBM scatter-add on TPU — measured
-    # 0.91 ms/query at bench shapes vs 0.07 ms for the Pallas tiled
-    # one-hot-matmul kernel (tools/probe_opt_bench.py, bit-identical).
-    # The flat kernel's one-hot is frame-axis-chunked (512-wide tiles,
-    # ADVICE r4 low) so VMEM is bounded, but its compare cost grows as
-    # L x f_pad; wide-frame DBs switch to the hierarchical hi/lo
-    # outer-product kernel (frame_votes_wide) whose compare cost is
-    # L x (f_pad/128 + 128) with the f_pad-proportional work on the MXU —
-    # at 20k keyframes the serialized segment_sum scatter-add it replaces
-    # measured 47.9 ms/query (tools/scale_probe_prof.py).
+    # --- exact per-frame vote tally. ---
     f_pad = db.frame_poses.shape[0]
-    if f_pad <= 2048:
-        from sgtd_tpu.ops.pallas_probe import frame_votes
-
-        votes = frame_votes(hit, frame_of_hit, f_pad)
-    else:
-        from sgtd_tpu.ops.pallas_probe import frame_votes_wide
-
-        votes = frame_votes_wide(hit, frame_of_hit, f_pad)
+    votes = frame_votes(hit, frame_of_hit, f_pad)
     votes = jnp.where(db.frame_valid, votes, 0.0)
 
     if not with_sel:
@@ -432,8 +388,8 @@ def extract_pairs(
 
     The frame grouping is ONE int32 value sort of (frame * DU + flat_index)
     — stable by construction — instead of a stable argsort + three
-    take_along_axis gathers (measured 1.17 -> ~0.4 ms/query at bench scale;
-    sorts and random gathers, not FLOPs, bound this stage). The packing
+    take_along_axis gathers (sorts and random gathers, not FLOPs, bound
+    this stage). The packing
     needs (f_pad + 1) * DU < 2^31; wide DBs fall back to argsort.
     """
     d_max, u = sel_frame.shape
@@ -509,30 +465,6 @@ def candidate_search(
     )
 
 
-def calibrate_scan_slots(db, sample_queries, config, margin: float = 1.5):
-    """Fit ``caps.max_scan_slots`` to the workload.
-
-    The ragged bucket scan pads to a static total (caps.max_scan_slots);
-    every op over that axis (gathers, cumsums, the vote segment-sum) scales
-    with it, so a loose cap wastes most of the probe stage. This measures
-    the true per-query scan totals on ``sample_queries`` (a stacked
-    Descriptors batch) and returns config with the cap set to the next
-    power of two above ``margin`` x the observed max (never above the
-    incoming cap). One jit recompile per distinct cap value.
-    """
-
-    @jax.jit
-    def totals(qs):
-        def one(q):
-            s, e, ok = probe_ranges(db, q, config.desc)
-            return jnp.sum(jnp.where(ok, e - s, 0))
-
-        return jax.vmap(one)(qs)
-
-    t = int(np.asarray(totals(sample_queries)).max())
-    return fit_scan_slots(t, config, margin)
-
-
 def fit_scan_slots(observed_max: int, config, margin: float = 1.5):
     """Turn an observed max probe-scan total into a fitted caps config.
 
@@ -540,7 +472,7 @@ def fit_scan_slots(observed_max: int, config, margin: float = 1.5):
     (the packed-word gathers, the delta-scatter expansions, the rough
     filter, the vote segment-sum) scales linearly with the cap, and pow2
     rounding wasted up to 2x (e.g. a 75k-slot workload padding to 131072
-    instead of 114688 — measured 5.4 ms/query probe stage, chain_probe.py).
+    instead of 114688).
     """
     fitted = max(8192, -(-int(observed_max * margin) // 8192) * 8192)
     caps = dataclasses.replace(
@@ -557,7 +489,7 @@ def _bisect(sorted_keys: jnp.ndarray, targets: jnp.ndarray, lo, hi, steps: int):
     """Vectorised lower_bound over a sorted array with given ranges.
 
     Rolled loop: an unrolled gather chain sends XLA:CPU compilation into the
-    weeds (>minutes); TPU is fine either way.
+    weeds (>minutes).
     """
     m = sorted_keys.shape[0]
 
@@ -660,10 +592,8 @@ def extract_pairs_by_frame(
         search.rough_dis_threshold
     ) ** 2
 
-    # pk_max separate gather passes over the probe table. (A "contiguous
-    # 8-wide slice gather" via vmapped dynamic_slice was measured 20x
-    # SLOWER — 235.8 vs 11.9 ms at scale shapes, tools/cm_prof.py: the
-    # batched dynamic_slice does not lower to a slice-sized gather.)
+    # pk_max separate gather passes over the probe table (a vmapped
+    # dynamic_slice does not lower to a slice-sized gather).
     matches = []
     descs = []
     for j in range(pk_max):

@@ -1,6 +1,6 @@
 """Geometric verification: batched SVD pose hypotheses + inlier voting.
 
-TPU-native re-design of ``STDescManager::candidate_verify`` and
+JAX re-design of ``STDescManager::candidate_verify`` and
 ``triangle_solver`` (src/sgtd/src/STDesc.cpp:462-571). The reference loops
 over sampled match pairs under OpenMP, solving one 3x3 SVD per hypothesis and
 counting inliers serially; here all candidates x hypotheses x pairs are one
@@ -52,11 +52,47 @@ def triangle_solver(src_verts: jnp.ndarray, ref_verts: jnp.ndarray):
     src_verts/ref_verts: (..., 3, 3) with rows A, B, C.
     Returns (rot (..., 3, 3), t (..., 3)) such that rot @ src + t ~= ref.
     Same optimum as the reference's SVD + reflection fix (STDesc.cpp:549-571)
-    computed with the quaternion Kabsch (always a proper rotation) — XLA's
-    generic batched SVD is an order of magnitude slower on TPU for tiny
-    matrices (see sgtd_tpu.ops.linalg3).
+    computed with the quaternion Kabsch (always a proper rotation): a
+    closed form instead of XLA's iterative batched SVD for tiny matrices
+    (see sgtd_tpu.ops.linalg3).
     """
     return kabsch(src_verts, ref_verts)
+
+
+def hypothesis_votes(
+    rot_h: jnp.ndarray,
+    t_h: jnp.ndarray,
+    vq: jnp.ndarray,
+    vdb: jnp.ndarray,
+    pair_valid: jnp.ndarray,
+    thr: float,
+) -> jnp.ndarray:
+    """Inlier vote count of every (candidate, hypothesis): (C, H) int32.
+
+    rot_h (C, H, 3, 3); t_h (C, H, 3); vq/vdb (C, P, 3, 3) vertex rows
+    A,B,C; pair_valid (C, P) bool. A pair votes for hypothesis h when all
+    three of its transformed query vertices lie within ``thr`` metres of
+    the DB vertices (ref STDesc.cpp:487-502).
+
+    The contraction over the 3 coordinates is written out as products and
+    sums, not as a dot: XLA then fuses transform, distance, threshold and
+    count into one reduction over P with no (C, H, P) tensor in memory, and
+    no matrix unit runs the metric coordinates at reduced precision.
+    """
+    thr2 = jnp.float32(thr) ** 2
+    r = rot_h[:, :, None, None, :, :]  # (C, H, 1, 1, 3, 3)
+    t = t_h[:, :, None, None, :]  # (C, H, 1, 1, 3)
+    v = vq[:, None, :, :, None, :]  # (C, 1, P, 3, 1, 3)
+    moved = (
+        r[..., 0] * v[..., 0] + r[..., 1] * v[..., 1] + r[..., 2] * v[..., 2]
+    ) + t  # (C, H, P, 3 vertices, 3 coords)
+    diff = moved - vdb[:, None]
+    d2 = diff[..., 0] ** 2 + diff[..., 1] ** 2 + diff[..., 2] ** 2
+    inlier = (
+        (d2[..., 0] < thr2) & (d2[..., 1] < thr2) & (d2[..., 2] < thr2)
+        & pair_valid[:, None, :]
+    )  # (C, H, P), fused into the count below
+    return jnp.sum(inlier.astype(jnp.int32), axis=-1)
 
 
 @functools.partial(jax.jit, static_argnames=("search",))
@@ -101,13 +137,7 @@ def verify_pairs(
     rot_h, t_h = triangle_solver(take_h(vq), take_h(vdb))  # (C, H, 3, 3)
 
     # Inlier voting: all three vertices within dis_threshold
-    # (STDesc.cpp:487-502), as a fused Pallas kernel — the XLA formulation
-    # materialised the (C, H, P, 3, 3) transformed-vertex tensor + distances
-    # in HBM (~60 MB/query at bench shapes); the kernel keeps each
-    # candidate's (H, P) tiles in VMEM and emits only the vote counts
-    # (ops.pallas_verify).
-    from sgtd_tpu.ops.pallas_verify import hypothesis_votes
-
+    # (STDesc.cpp:487-502).
     votes_h = hypothesis_votes(
         rot_h, t_h, vq, vdb, pair_valid, search.verify_dis_threshold
     )  # (C, H) int32
@@ -124,7 +154,8 @@ def verify_pairs(
     # Inlier mask re-derived for the best hypothesis ONLY: O(C, P) instead
     # of carrying the full (C, H, P) mask out of the vote pass.
     moved_b = (
-        jnp.einsum("cij,cpkj->cpki", rot_b, vq) + t_b[:, None, None, :]
+        jnp.sum(rot_b[:, None, None] * vq[:, :, :, None, :], axis=-1)
+        + t_b[:, None, None, :]
     )  # (C, P, 3, 3)
     d_b = jnp.linalg.norm(moved_b - vdb, axis=-1)  # (C, P, 3)
     inl_b = (

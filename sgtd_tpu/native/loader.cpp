@@ -1,6 +1,6 @@
 // Native data loader for sgtd_tpu.
 //
-// TPU-native equivalent of the reference's C++ scan/label readers
+// Native-code equivalent of the reference's C++ scan/label readers
 // (readBinFile, semantic_graph_localization.cpp:132-182; gen_labels' raw
 // readers, get_json.cpp:47-88) plus a background prefetcher the reference
 // lacks (its main loop does blocking file IO per query).

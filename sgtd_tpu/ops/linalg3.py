@@ -1,9 +1,9 @@
-"""Closed-form batched 3x3/4x4 linear algebra for TPU.
+"""Closed-form batched 3x3/4x4 linear algebra.
 
 XLA's generic ``jnp.linalg.svd``/``eigh`` lower to iterative algorithms that
 are slow for huge batches of tiny matrices (the shape this framework lives
 on: per-triangle Kabsch solves, per-point covariance regularization). These
-routines are branch-free closed forms that map onto the VPU:
+routines are branch-free closed forms made of elementwise operations:
 
   * ``sym_eig3x3`` — analytic eigenvalues (trigonometric Cardano) +
     cross-product eigenvectors for symmetric 3x3 matrices.
@@ -22,6 +22,17 @@ import jax
 import jax.numpy as jnp
 
 _EPS = 1e-12
+HIGHEST = jax.lax.Precision.HIGHEST
+
+
+def matmul(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
+    """``a @ b`` with float32 products kept at full precision.
+
+    A float32 product at default precision may run in TF32 (or bf16 passes)
+    on a matrix unit, which loses centimetres on metric coordinates of
+    50-500 m. Every product that carries coordinates or poses uses this.
+    """
+    return jnp.matmul(a, b, precision=HIGHEST)
 
 
 def inv3x3(m: jnp.ndarray) -> jnp.ndarray:
@@ -161,7 +172,7 @@ def kabsch(src: jnp.ndarray, ref: jnp.ndarray, weights: jnp.ndarray | None = Non
     r = r * inv_sigma
     weights_n = wn[..., 0]
     # Cross-covariance H = sum w s_i r_i^T  (..., 3, 3)
-    H = jnp.einsum("...ni,...nj->...ij", s * wn, r)
+    H = jnp.einsum("...ni,...nj->...ij", s * wn, r, precision=HIGHEST)
 
     sxx, sxy, sxz = H[..., 0, 0], H[..., 0, 1], H[..., 0, 2]
     syx, syy, syz = H[..., 1, 0], H[..., 1, 1], H[..., 1, 2]
@@ -221,7 +232,9 @@ def kabsch(src: jnp.ndarray, ref: jnp.ndarray, weights: jnp.ndarray | None = Non
         ],
         axis=-2,
     )
-    t = mu_r[..., 0, :] - jnp.einsum("...ij,...j->...i", rot, mu_s[..., 0, :])
+    t = mu_r[..., 0, :] - jnp.einsum(
+        "...ij,...j->...i", rot, mu_s[..., 0, :], precision=HIGHEST
+    )
     return rot, t
 
 
@@ -230,11 +243,9 @@ def chol_solve6(H: jnp.ndarray, g: jnp.ndarray) -> jnp.ndarray:
 
     The se(3) normal-equation solve of the registration engines
     (H + lambda I from J^T M J, ref lsq_registration_impl.hpp:110,137).
-    jnp.linalg.solve lowers 6x6 batches to a pivoted-LU loop on TPU —
-    measured 0.62 ms per batched solve at the rerank's (16, 4) batch, which
-    multiplied by the LM trust region's 8 inner solves per outer iteration
-    dominated the optimizer. This unrolled Cholesky is ~50 vectorized
-    scalar ops over the batch (~us), exact for the SPD case.
+    jnp.linalg.solve lowers 6x6 batches to a pivoted-LU loop, run 8 times
+    per LM outer iteration. This unrolled Cholesky is ~50 vectorized
+    scalar ops over the batch, exact for the SPD case.
 
     H (..., 6, 6), g (..., 6) -> x (..., 6).
     """

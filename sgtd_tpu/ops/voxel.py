@@ -1,6 +1,6 @@
 """Voxel-grid centroid downsampling.
 
-TPU-native analog of the PCL ``ApproximateVoxelGrid`` the reference applies
+JAX analog of the PCL ``ApproximateVoxelGrid`` the reference applies
 to the query cloud before GICP (leaf_size knob,
 src/sgtd/src/semantic_graph_localization.cpp:357-359, 654-662): points are
 binned by floor(p / leaf) and replaced by per-voxel centroids.

@@ -1,14 +1,14 @@
 """Device-mesh helpers for sharded matching.
 
 The reference has no distributed execution at all (SURVEY.md section 2.3);
-this module defines the TPU-native scaling axes that replace it:
+this module defines the scaling axes that replace it:
 
   * ``db``   — descriptor-database rows sharded across devices (the map-size
                scaling axis; the analog of the reference's unbounded hash DB,
                STDesc.h:370, which caps at MAX_FRAME_N=20000 keyframes).
   * ``dp``   — data parallelism over query scans.
 
-Collectives ride ICI via shard_map: per-shard votes are psum-merged, pair
+Collectives run under shard_map: per-shard votes are psum-merged, pair
 lists all-gathered (queries are tiny compared to the DB).
 """
 

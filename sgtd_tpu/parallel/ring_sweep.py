@@ -4,7 +4,7 @@ The scaling mode for maps exceeding aggregate-per-device HBM budgets (the
 "long-context analog" of SURVEY.md §5.7): the mesh is one ``dp`` axis with
 query scans sharded across it and the descriptor DB split into one block per
 device. Over n ring steps every device scans every block —
-``jax.lax.ppermute`` rotates the block row arrays over ICI while per-block
+``jax.lax.ppermute`` rotates the block row arrays between devices while per-block
 partial votes accumulate locally (structurally identical to ring attention):
 
   step s: device d holds block b = (d + s) mod n
@@ -36,6 +36,7 @@ from sgtd_tpu.graph.types import SemanticGraph
 from sgtd_tpu.match.pipeline import LocalizationResult
 from sgtd_tpu.match.search import extract_pairs, probe_and_hits, select_candidates
 from sgtd_tpu.match.verify import verify_pairs
+from sgtd_tpu.ops.linalg3 import matmul
 
 
 class _RingBlock(NamedTuple):
@@ -134,7 +135,7 @@ def _localize_ring(db_local: DescriptorDB, graphs: SemanticGraph, config: SGTDCo
         frames = cand_frames[order]
         scores = ver.scores[order]
         t_loop = se3.rt_to_mat(ver.rot[order], ver.trans[order])
-        poses = db_local.frame_poses[frames] @ t_loop
+        poses = matmul(db_local.frame_poses[frames], t_loop)
         best_score = scores[0]
         found = best_score > jnp.float32(config.search.icp_threshold)
         return LocalizationResult(

@@ -7,7 +7,7 @@ observation table (and the landmarks it references) shards over a mesh axis;
 keyframe poses — the small, globally-coupled state — stay replicated:
 
   per shard: linearize local observations         (L/D, O, ...) blocks
-  -> psum reduced gradient g and the PCG matvec   (F, 6) vectors over ICI
+  -> psum reduced gradient g and the PCG matvec   (F, 6) vectors across devices
   -> identical preconditioned-CG solve on every shard (replicated dp)
   -> local landmark back-substitution             (L/D, 3), no comm
 

@@ -12,7 +12,7 @@ table shards across the ``db`` mesh axis and query scans across ``dp``:
   -> replicated batched verification.
 
 The heavy, map-sized work (bucket scans, votes) scales with shard count;
-only candidate-pair lists cross ICI. Numerically the result is identical to
+only candidate-pair lists cross between devices. Numerically the result is identical to
 the single-device pipeline up to the per-shard pair quota split.
 """
 
@@ -33,6 +33,7 @@ from sgtd_tpu.graph.types import SemanticGraph
 from sgtd_tpu.match.pipeline import LocalizationResult
 from sgtd_tpu.match.search import extract_pairs, probe_and_hits, select_candidates
 from sgtd_tpu.match.verify import verify_pairs
+from sgtd_tpu.ops.linalg3 import matmul
 
 
 def _compact_valid_first(pair_valid, *arrays):
@@ -89,7 +90,7 @@ def _localize_one_sharded(db_local: DescriptorDB, query: Descriptors, config: SG
     frames = cand_frames[order]
     scores = ver.scores[order]
     t_loop = se3.rt_to_mat(ver.rot[order], ver.trans[order])
-    poses = db_local.frame_poses[frames] @ t_loop
+    poses = matmul(db_local.frame_poses[frames], t_loop)
     best_score = scores[0]
     found = best_score > jnp.float32(config.search.icp_threshold)
     return LocalizationResult(

@@ -1,16 +1,16 @@
 """Batched GICP registration (generalized ICP, plane-regularized).
 
-TPU-native re-design of the reference's fast_gicp CPU/CUDA engines
+JAX re-design of the reference's fast_gicp CPU/CUDA engines
 (src/fast_gicp/gicp/impl/fast_gicp_impl.hpp, lsq_registration_impl.hpp; the
 CUDA tier src/fast_gicp/cuda/*.cu is the reference's device-kernel analog of
 this module, SURVEY.md 2.2). Same math, different execution model:
 
   * per-point covariances from k=20 nearest neighbours with plane
     regularization — eigenvalues replaced by (1, 1, 1e-3)
-    (fast_gicp_impl.hpp:244-290); kNN is a chunked dense distance matmul +
-    top-k instead of a kd-tree;
+    (fast_gicp_impl.hpp:244-290); kNN is a brute-force distance reduction
+    + top-k instead of a kd-tree (ops.nn);
   * correspondences: nearest neighbour of each transformed source point
-    (fast_gicp_impl.hpp:118-155) via the same matmul trick;
+    (fast_gicp_impl.hpp:118-155) by the same brute-force search;
   * Mahalanobis weighting M = (C_B + R C_A R^T)^-1 with closed-form 3x3
     inverse;
   * Gauss-Newton on se(3) under ``lax.fori_loop`` (the reference's LM loop
@@ -33,8 +33,8 @@ import numpy as np
 
 from sgtd_tpu.config import GicpConfig
 from sgtd_tpu.geom import se3
-from sgtd_tpu.ops import pallas_nn
-from sgtd_tpu.ops.linalg3 import inv3x3, sym_eig3x3
+from sgtd_tpu.ops.nn import knn, nn1
+from sgtd_tpu.ops.linalg3 import inv3x3, matmul, sym_eig3x3
 from sgtd_tpu.refine.lsq import gn_solve, lm_solve
 
 _BIG = jnp.float32(1e30)
@@ -43,10 +43,8 @@ _BIG = jnp.float32(1e30)
 def _bsum_mm(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
     """Batched (..., i, j) @ (..., j, k) as broadcast-multiply-sum.
 
-    XLA:TPU lowers huge batches of tiny (3x3) dot_generals poorly when the
-    operands come from gathers inside a scan under vmap (measured 65x slower
-    than this form on the multi-candidate rerank); the broadcast-sum fuses
-    into plain VPU elementwise work.
+    Huge batches of tiny (3x3) products fuse into plain elementwise work
+    this way, exact in float32, instead of becoming batched dot_generals.
     """
     return jnp.sum(a[..., :, :, None] * b[..., None, :, :], axis=-2)
 
@@ -89,25 +87,16 @@ def _fitness_stats(sqd: jnp.ndarray, valid: jnp.ndarray, cfg: GicpConfig):
     return fitness, n_inl.astype(jnp.int32), fitness_gated, inlier_frac
 
 
-def knn_indices(
-    points: jnp.ndarray, mask: jnp.ndarray, k: int, chunk: int = 1024
-) -> jnp.ndarray:
+def knn_indices(points: jnp.ndarray, mask: jnp.ndarray, k: int) -> jnp.ndarray:
     """k nearest neighbours (self included) within one masked cloud: (N, k).
 
-    Pallas fused kernel (ops.pallas_nn.knn): the distance tile stays in
-    VMEM and k min-extraction passes replace lax.top_k, whose XLA:TPU
-    lowering at k=20 does a full per-row sort — measured 8.7 of the 9.4
-    ms/query covariance stage at N=4096 (tools/profile_cov2.py); the kernel
-    runs the same shape in 0.6 ms.
-
     Masking is done by DISPLACING masked points to a far coordinate rather
-    than editing the distance matrix (no epilogue between the MXU distance
-    expression and the reduction). Padding points cluster among themselves
-    at the far coordinate; their outputs are gated by ``mask`` downstream.
+    than editing the distance matrix, so the distance expression feeds the
+    reduction directly. Padding points cluster among themselves at the far
+    coordinate; their outputs are gated by ``mask`` downstream.
     """
-    del chunk  # legacy XLA-path tiling knob
     pts_eff = jnp.where(mask[:, None], points, jnp.float32(1e6))
-    return pallas_nn.knn(pts_eff, pts_eff, k)
+    return knn(pts_eff, pts_eff, k)
 
 
 def point_covariances(
@@ -127,85 +116,6 @@ def point_covariances(
     return jnp.where(mask[:, None, None], cov_reg, jnp.eye(3, dtype=cov.dtype))
 
 
-# Fused Pallas linearization (ops.pallas_gicp): the whole GICP iteration
-# (distances, first-argmin, one-hot MXU payload gather, Mahalanobis, H/g
-# reduction) per source tile in VMEM. MEASURED NEGATIVE at bench shapes
-# (chain_rerank.py): 4.55 vs 3.87 ms/query — the payload gather must run
-# the MXU at f32 (6 passes; bf16 quantizes gathered coordinates ~2 cm at
-# 20 m, observed on chip), which costs more than the XLA path's
-# issue-bound row gathers + elementwise chain. Kept selectable (exact to
-# 1e-7 vs the XLA formulation, tests/test_pallas_gicp) for cloud shapes
-# where the trade flips (small T, many iterations).
-_USE_FUSED_LINEARIZE = False
-
-
-def _gicp_align_fused(
-    src, src_mask, tgt, tgt_eff, tgt_mask, init_transform, cfg,
-    src_cov, tgt_cov,
-) -> GicpResult:
-    from sgtd_tpu.ops.pallas_gicp import build_gicp_payload, linearize_gicp
-
-    payload = build_gicp_payload(tgt, tgt_mask, tgt_cov)
-    scov6 = jnp.stack(
-        [src_cov[:, 0, 0], src_cov[:, 0, 1], src_cov[:, 0, 2],
-         src_cov[:, 1, 1], src_cov[:, 1, 2], src_cov[:, 2, 2]],
-        axis=1,
-    )
-    gate = float(cfg.max_corr_dist_m)
-
-    def linearize(T):
-        H, g, y0, aux = linearize_gicp(
-            T, src, scov6, src_mask, tgt_eff, payload, gate
-        )
-        return H, g, y0, aux
-
-    def error(T, aux):
-        b = aux[:, :3]
-        w = aux[:, 9]
-        moved = src @ T[:3, :3].T + T[:3, 3]
-        rx = b[:, 0] - moved[:, 0]
-        ry = b[:, 1] - moved[:, 1]
-        rz = b[:, 2] - moved[:, 2]
-        Mrx = aux[:, 3] * rx + aux[:, 4] * ry + aux[:, 5] * rz
-        Mry = aux[:, 4] * rx + aux[:, 6] * ry + aux[:, 7] * rz
-        Mrz = aux[:, 5] * rx + aux[:, 7] * ry + aux[:, 8] * rz
-        return jnp.sum(w * (rx * Mrx + ry * Mry + rz * Mrz))
-
-    T0 = init_transform.astype(src.dtype)
-    if cfg.optimizer == "lm":
-        res = lm_solve(
-            linearize, error, T0,
-            max_iterations=cfg.max_iterations,
-            lm_inner=cfg.lm_max_inner,
-            rot_eps=cfg.rot_eps,
-            trans_eps=cfg.trans_eps,
-            init_lambda_factor=cfg.lm_init_lambda_factor,
-        )
-    else:
-        res = gn_solve(
-            linearize, T0,
-            max_iterations=cfg.max_iterations,
-            rot_eps=cfg.rot_eps,
-            trans_eps=cfg.trans_eps,
-            damping=cfg.gn_damping,
-        )
-    T_final = res.transform
-
-    moved = src @ T_final[:3, :3].T + T_final[:3, 3]
-    nn, sqd = pallas_nn.nn1(moved, tgt_eff)
-    valid = src_mask & tgt_mask[nn]
-    fitness, n_inl, fitness_gated, inlier_frac = _fitness_stats(
-        sqd, valid, cfg
-    )
-    return GicpResult(
-        transform=T_final,
-        fitness=fitness,
-        num_inliers=n_inl,
-        fitness_gated=fitness_gated,
-        inlier_frac=inlier_frac,
-    )
-
-
 def gicp_align(
     src: jnp.ndarray,
     src_mask: jnp.ndarray,
@@ -222,35 +132,22 @@ def gicp_align(
     if tgt_cov is None:
         tgt_cov = point_covariances(tgt, tgt_mask, cfg)
 
-    # Masked target points displaced far away (see knn_indices: editing the
-    # distance matrix breaks the fused matmul+reduction lowering).
+    # Masked target points displaced far away (see knn_indices).
     tgt_eff = jnp.where(tgt_mask[:, None], tgt, jnp.float32(1e6))
     n = src.shape[0]
 
-    if _USE_FUSED_LINEARIZE:
-        return _gicp_align_fused(
-            src, src_mask, tgt, tgt_eff, tgt_mask, init_transform, cfg,
-            src_cov, tgt_cov,
-        )
-
     def nn_of(transformed):
-        """Nearest target index + sq dist for each (transformed) src point.
-
-        Pallas fused distance+argmin (ops.pallas_nn.nn1): the (N, T)
-        distance matrix is reduced tile-by-tile in VMEM instead of being
-        materialised in HBM every GICP iteration.
-        """
-        return pallas_nn.nn1(transformed, tgt_eff)
+        """Nearest target index + sq dist for each (transformed) src point."""
+        return nn1(transformed, tgt_eff)
 
     def linearize(T):
         """linearize (fast_gicp_impl.hpp:118-176): correspondences + H, g.
 
         Small matmuls as broadcast-sums, reductions over points as ONE
-        (6, 3N) x (3N, 6) MXU matmul — tiny batched dot_generals here ran
-        65x slower under the candidate vmap (see _bsum_mm).
+        (6, 3N) x (3N, 6) matmul at full float32 precision.
         """
         R = T[:3, :3]
-        moved = src @ R.T + T[:3, 3]
+        moved = matmul(src, R.T) + T[:3, 3]
         nn, nn_sqd = nn_of(moved)
         b_pts = tgt[nn]
         cb = tgt_cov[nn]
@@ -274,15 +171,14 @@ def gicp_align(
         )  # (N, 3, 6)
         MJ = _bsum_mm(M, J)  # (N, 3, 6)
         Jw = (J * w[:, None, None]).reshape(n * 3, 6)
-        H = Jw.T @ MJ.reshape(n * 3, 6)  # (6, 6)
+        H = matmul(Jw.T, MJ.reshape(n * 3, 6))  # (6, 6)
         Mr = jnp.sum(M * r[:, None, :], axis=-1)  # (N, 3) = M r
-        g = Jw.T @ Mr.reshape(n * 3)  # (6,)
+        g = matmul(Jw.T, Mr.reshape(n * 3))  # (6,)
         y0 = jnp.sum(w * jnp.sum(r * Mr, axis=-1))
         # aux carries the GATHERED target points, not the indices: error()
         # runs 8x per outer iteration inside LM's trust region, and
-        # re-gathering tgt[nn] there costs ~320k random rows per query at
-        # rerank shapes (random-gather issue rate bounds it, BENCH_NOTES) —
-        # the 12 KB of gathered points are effectively free to keep.
+        # re-gathering tgt[nn] there would cost ~320k random rows per query
+        # at rerank shapes; the 12 KB of gathered points are free to keep.
         return H, g, y0, (b_pts, M, w)
 
     def error(T, aux):
@@ -290,7 +186,7 @@ def gicp_align(
         (the reference reuses mahalanobis_ from the last linearization,
         fast_gicp_impl.hpp:178-200)."""
         b_pts, M, w = aux
-        moved = src @ T[:3, :3].T + T[:3, 3]
+        moved = matmul(src, T[:3, :3].T) + T[:3, 3]
         r = b_pts - moved
         Mr = jnp.sum(M * r[:, None, :], axis=-1)
         return jnp.sum(w * jnp.sum(r * Mr, axis=-1))
@@ -315,7 +211,7 @@ def gicp_align(
         )
     T_final = res.transform
 
-    moved = src @ T_final[:3, :3].T + T_final[:3, 3]
+    moved = matmul(src, T_final[:3, :3].T) + T_final[:3, 3]
     nn, sqd = nn_of(moved)
     valid = src_mask & tgt_mask[nn]
     fitness, n_inl, fitness_gated, inlier_frac = _fitness_stats(

@@ -1,7 +1,7 @@
 """Levenberg-Marquardt / Gauss-Newton stepping on SE(3), shared by the
 registration engines (GICP / VGICP / NDT).
 
-TPU-native re-design of the reference's ``LsqRegistration`` optimizer
+JAX re-design of the reference's ``LsqRegistration`` optimizer
 (src/sgtd/include/fast_gicp/gicp/impl/lsq_registration_impl.hpp:53-163):
 
   * ``step_gn``: one linearize + 6x6 solve per iteration (:106-120);
@@ -38,7 +38,7 @@ import jax
 import jax.numpy as jnp
 
 from sgtd_tpu.geom import se3
-from sgtd_tpu.ops.linalg3 import chol_solve6
+from sgtd_tpu.ops.linalg3 import HIGHEST, chol_solve6, matmul
 
 
 class LsqResult(NamedTuple):
@@ -77,12 +77,12 @@ def gn_solve(
     def step(carry):
         i, T, done, y_last = carry
         H, g, y0, _ = linearize(T)
-        # Unrolled SPD solve: jnp.linalg.solve's 6x6 pivoted-LU loop costs
-        # ~0.6 ms per batched call on TPU (ops.linalg3.chol_solve6).
+        # Unrolled SPD solve (ops.linalg3.chol_solve6) instead of
+        # jnp.linalg.solve's pivoted-LU loop.
         d = chol_solve6(H + damping * eye6, -g)
         delta_T = se3.se3_exp(d)
         conv = _is_converged(delta_T, rot_eps, trans_eps)
-        T_new = jnp.where(done, T, delta_T @ T)
+        T_new = jnp.where(done, T, matmul(delta_T, T))
         y_new = jnp.where(done, y_last, y0)
         return (i + 1, T_new, done | conv, y_new)
 
@@ -144,10 +144,10 @@ def lm_solve(
         Hk = H[None] + lam_k[:, None, None] * eye6[None]
         d_k = jax.vmap(lambda Hi: chol_solve6(Hi, -g))(Hk)  # (K, 6)
         delta_k = jax.vmap(se3.se3_exp)(d_k)  # (K, 4, 4)
-        T_k = delta_k @ T[None]
+        T_k = matmul(delta_k, T[None])
         y_k = jax.vmap(lambda Ti: error(Ti, aux))(T_k)  # (K,)
         rho_k = (y0 - y_k) / jnp.einsum(
-            "kj,kj->k", d_k, lam_k[:, None] * d_k - g[None]
+            "kj,kj->k", d_k, lam_k[:, None] * d_k - g[None], precision=HIGHEST
         )  # :142
         accept_k = rho_k >= 0.0
         stepconv_k = jax.vmap(

@@ -1,6 +1,6 @@
 """Voxelized NDT registration (normal distributions transform).
 
-TPU-native re-design of the reference's ``Ndt3d``
+JAX re-design of the reference's ``Ndt3d``
 (src/sgtd/include/ndt_3d.h, src/sgtd/src/ndt_3d.cc — used in earlier
 pipeline versions, SURVEY.md 2.1): the target cloud becomes a grid of
 per-voxel Gaussians (mean, regularized inverse covariance); alignment is

@@ -1,7 +1,7 @@
 """Voxelized GICP (VGICP): Gaussian voxel map + voxel-neighbourhood
 correspondences.
 
-TPU-native re-design of the reference's fast_vgicp
+JAX re-design of the reference's fast_vgicp
 (src/sgtd/include/fast_gicp/gicp/fast_vgicp_voxel.hpp:79-165,
 impl/fast_vgicp_impl.hpp:74-200; the CUDA tier src/fast_gicp/cuda is its
 device analog). Same math, tensorised:
@@ -21,8 +21,8 @@ device analog). Same math, tensorised:
   * optimizer: Gauss-Newton or the Levenberg-Marquardt trust region
     (sgtd_tpu.refine.lsq), selected by GicpConfig.optimizer.
 
-This is the most TPU-friendly registration in the reference: no
-per-iteration nearest-neighbour search — pure gathers + one MXU reduction.
+This is the most accelerator-friendly registration in the reference: no
+per-iteration nearest-neighbour search — pure gathers + one reduction.
 Everything vmaps over a candidate axis for the multi-candidate rerank.
 """
 
@@ -37,7 +37,7 @@ import numpy as np
 
 from sgtd_tpu.config import GicpConfig
 from sgtd_tpu.geom import se3
-from sgtd_tpu.ops.linalg3 import inv3x3
+from sgtd_tpu.ops.linalg3 import inv3x3, matmul
 from sgtd_tpu.refine.gicp import _bsum_mm, point_covariances
 from sgtd_tpu.refine.lsq import LsqResult, gn_solve, lm_solve
 
@@ -217,7 +217,7 @@ def vgicp_align(
 
     def linearize(T):
         R = T[:3, :3]
-        moved = src @ R.T + T[:3, 3]
+        moved = matmul(src, R.T) + T[:3, 3]
         slot, found = _correspondences(vm, moved, src_mask, offsets)
         mu_b = vm.mean[slot]  # (N, O, 3)
         cov_b = vm.cov[slot]  # (N, O, 3, 3)
@@ -235,9 +235,9 @@ def vgicp_align(
         Jo = jnp.broadcast_to(J[:, None], (n, o, 3, 6))
         MJ = _bsum_mm(M, Jo)  # (N, O, 3, 6)
         Jw = (Jo * w[..., None, None]).reshape(n * o * 3, 6)
-        H = Jw.T @ MJ.reshape(n * o * 3, 6)
+        H = matmul(Jw.T, MJ.reshape(n * o * 3, 6))
         Me = jnp.sum(M * e[..., None, :], axis=-1)  # (N, O, 3)
-        g = Jw.T @ Me.reshape(n * o * 3)
+        g = matmul(Jw.T, Me.reshape(n * o * 3))
         y0 = jnp.sum(w * jnp.sum(e * Me, axis=-1))
         return H, g, y0, (slot, found, M, w, mu_b)
 
@@ -245,7 +245,7 @@ def vgicp_align(
         # compute_error (fast_vgicp_impl.hpp:178-200): same correspondences
         # and Mahalanobis terms, new transform.
         slot, found, M, w, mu_b = aux
-        moved = src @ T[:3, :3].T + T[:3, 3]
+        moved = matmul(src, T[:3, :3].T) + T[:3, 3]
         e = mu_b - moved[:, None, :]
         Me = jnp.sum(M * e[..., None, :], axis=-1)
         return jnp.sum(w * jnp.sum(e * Me, axis=-1))
@@ -270,7 +270,7 @@ def vgicp_align(
         )
 
     T = res.transform
-    moved = src @ T[:3, :3].T + T[:3, 3]
+    moved = matmul(src, T[:3, :3].T) + T[:3, 3]
     slot1, found1 = _correspondences(
         vm, moved, src_mask, _OFFSETS["direct1"]
     )

@@ -16,8 +16,6 @@ of rerank outputs on the bench workload (planar surface clouds):
   argmin-raw  = pure min-raw-fitness pick + guard (reference pick proper)
   descriptor  = no GICP refinement at all
 
-Results go to BENCH_NOTES.md ("Heuristic ablation").
-
 Run: python tools/ablate_heuristics.py
 """
 

@@ -1,8 +1,7 @@
 """Accuracy-discriminating evaluation on the aliased hard world.
 
-VERDICT r3 next-#3: the plain synthetic bench saturates SR at 1.000, so no
-accuracy regression is detectable, and its blob clouds give GICP a noise
-floor (refinement WORSENS RMSE there). This harness runs the full
+The plain synthetic bench saturates SR at 1.000, so no accuracy regression
+is detectable there. This harness runs the full
 reference-style table (SR_5 / RMSE_P / RMSE_R / Recall@1/5/10 / ms per
 query — the readme.txt:294-313 columns) on `data.synthetic.make_hard_world`:
 repeated block motifs alias the descriptor space (SR lands in the
@@ -12,7 +11,7 @@ true optimum (refined RMSE < descriptor RMSE).
 Runs descriptor-only and GICP-refined configurations through
 eval.runner.evaluate (the reference-node analog), then checks pipeline
 found/best-frame agreement against the NumPy reference oracle on a query
-subsample. Writes HARD_EVAL_r05.json; summarized in BENCH_NOTES.md.
+subsample. Prints the result table as JSON.
 
 Run:  timeout 1150 python -u tools/hard_eval.py [num_map] [num_q]
 """
@@ -150,8 +149,6 @@ def main():
         "gicp_refined": out_gicp,
         "oracle_subsample": agree,
     }
-    with open("HARD_EVAL_r05.json", "w") as f:
-        json.dump(result, f, indent=2)
     print(json.dumps(result, indent=2))
 
     sr = out_desc["success_rate"]
